@@ -1,24 +1,24 @@
-"""Headline benchmark: dense SLAM frames/s on one chip — multi-metric.
+"""Headline benchmark: dense SLAM frames/s on one GPU — multi-metric.
 
 Emits ONE JSON line whose headline is open-loop 640x480 fps (the reference's
 TUM/ICL operating point; its real-time gate is 30 Hz on a ">=3.5 TFLOPS
 nVidia GPU", `GUI/src/MainController.cpp:389-395`,
 `elasticfusion/README.md:46-60`; `vs_baseline` = fps / 30).  The `extra`
-block carries the full matrix (VERDICT round-1 #6 — claims as artifacts):
+block carries the full matrix:
 
 - `closed_loop_fps`: same config with the loop-closure machinery enabled at
   its cadence (fern encode/insert + local-loop attempt every 8 frames);
-- `reloc_fps`: relocalisation mode on (device-side lost counter) — must cost
-  <10% of the headline;
+- `reloc_fps`: relocalisation mode on (device-side lost counter);
 - `kitti_fps`: 1024x320 (the ECMR'21 KITTI operating point);
-- `collab`: N-camera SPMD step scaling efficiency, measured in a subprocess
-  on a virtual 8-device CPU mesh (the one real chip cannot host a mesh;
-  efficiency is a ratio, so the platform cancels to first order).
+- `mono_street_kitti`: the monocular street lap with CNN depth, sparse BA
+  and hybrid loops.
+
+Refuses to run without a GPU; every result carries the card's name and
+power limit.
 """
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -27,9 +27,17 @@ sys.path.insert(0, REPO)
 
 BASELINE_FPS = 30.0
 
+# the revisit-lap leg: local loops at cadence with `time_delta` shorter than
+# the 40-frame lap, so revisits land in the INACTIVE map and closures fire
+CLOSED_LOOP_CFG = dict(
+    open_loop=False, loop_check_interval=8, time_delta=30,
+    deform_graph_sample_rate=2000, max_deform_nodes=256,
+    loop_min_inactive_frac=0.05, loop_cons_err_thresh=0.02,
+)
 
-def _run_slam(W, H, n_frames, warmup, cfg_kw, intr=None, lap=0,
-              base_cfg=None):
+
+def run_slam(W, H, n_frames, warmup, cfg_kw, intr=None, lap=0,
+             base_cfg=None):
     """Run one benchmark leg.  `lap` > 0 replays a `lap`-frame orbit
     repeatedly (frame i = orbit frame i % lap) so revisits land in the
     INACTIVE map and the loop-closure machinery actually fires; returns
@@ -84,7 +92,7 @@ def _run_slam(W, H, n_frames, warmup, cfg_kw, intr=None, lap=0,
     jax.block_until_ready(eng.frontends["cam0"].state.map_data)
     loops_pre = eng.frontends["cam0"].loops_closed
     # time every local-loop invocation inside the timed region so the bench
-    # reports the end-to-end per-closure cost (docs/PERF_CLOSURE.md)
+    # reports the end-to-end per-closure cost
     import densemonoslam_tpu.loops as loopsmod
 
     loop_s = [0.0, 0]
@@ -116,12 +124,13 @@ def _run_slam(W, H, n_frames, warmup, cfg_kw, intr=None, lap=0,
     return fps, ate_rmse(est, gt) * 1000.0, eng, loops_timed, ms_per_closure
 
 
-def _run_mono_street():
+def run_mono_street(n: int = 520, warm: int = 70):
     """Flagship monocular street lap at the KITTI operating point (BASELINE
     config 3 stand-in): CNN depth prediction -> sparse tracking with local
     RGB-D BA -> windowed dense fusion -> hybrid loop closure over a ~314 m
-    closing lap.  Reference command: `--predict_depth --orb_tracking ...`
-    (`/root/reference/README.md:128-133`)."""
+    closing lap (`n` = 520 frames is one full lap; the first `warm` frames
+    are untimed).  Reference command: `--predict_depth --orb_tracking ...`
+    (reference `README.md:128-133`)."""
     import numpy as np
     import jax
 
@@ -132,7 +141,6 @@ def _run_mono_street():
     from densemonoslam_tpu.models.depthnet import DepthPredictor
     from densemonoslam_tpu.tracking.sparse import SparseTracker
 
-    n = int(os.environ.get("BENCH_STREET_FRAMES", "520"))
     seq = StreetSequence(
         camera=CameraConfig.kitti_default(), num_frames=n,
         exposure_jitter=0.03,
@@ -186,9 +194,9 @@ def _run_mono_street():
                 cg_iters=128,
             )[1]
         )
-    # warm replay long enough that the BA window shapes (kf 3..6) and the
-    # first periodic compaction (tick 64) have all executed once
-    warm = 70
+    # the warm replay should be long enough that the BA window shapes
+    # (kf 3..6) and the first periodic compaction (tick 64) have all
+    # executed once
     for i in range(warm):
         eng.process_frame("cam0", frames[i], None, float(i), sync=False)
     jax.block_until_ready(fe.state.map_data)
@@ -200,8 +208,8 @@ def _run_mono_street():
     est = [p for _, p in fe.trajectory]
     gt = [seq.gt_pose(i) for i in range(len(est))]
     return {
-        "fps": round(fps, 2),
-        "ate_m": round(float(ate_rmse(est, gt)), 3),
+        "fps": fps,
+        "ate_m": float(ate_rmse(est, gt)),
         "hybrid_loops": fe.loops_closed,
         "sparse_loops": fe.sparse_tracker.loops_closed,
         "surfels": int(fe.state.map_count),
@@ -209,63 +217,19 @@ def _run_mono_street():
     }
 
 
-_COLLAB_SCRIPT = r"""
-import os, sys, time, json
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-sys.path.insert(0, %(repo)r)
-import jax
-jax.config.update("jax_platforms", "cpu")
-import jax.numpy as jnp
-import numpy as np
-from densemonoslam_tpu.config import CameraIntrinsics, EngineConfig
-from densemonoslam_tpu.parallel import collab
-from densemonoslam_tpu.parallel.mesh import make_mesh
-
-from densemonoslam_tpu.io.synthetic import SyntheticSequence
-
-# REAL frames (the analytic orbit fixture), full pipeline config (NID
-# keyframing on): tracking/fusion take their live branches, so scaling
-# efficiency measures the actual SLAM workload, not degenerate paths on
-# random noise
-seq = SyntheticSequence(num_frames=24, radius=0.3, max_angle=0.25)
-H = seq.camera.resolution.height
-W = seq.camera.resolution.width
-intr = seq.camera.intrinsics
-cfg = EngineConfig(max_surfels=1 << 15, depth_cutoff=8.0, depth_factor=1.0,
-                   max_depth=8.0, nid_keyframing=True, open_loop=False)
-frames = [seq.frame(i) for i in range(24)]
-out = {}
-iters = 10
-for n in (1, 8):
-    mesh = make_mesh(n_cams=n, n_map=1, devices=jax.devices()[:n])
-    step = collab.make_collab_step(mesh, intr, H, W, cfg)
-    state = collab.init_state(n, cfg.max_surfels, H, W)
-    # camera c follows the orbit offset by 2c frames
-    def batch(i):
-        rgb = np.stack([frames[(i + 2 * c) %% 24][0] for c in range(n)])
-        dep = np.stack([frames[(i + 2 * c) %% 24][1] for c in range(n)])
-        return jnp.asarray(rgb), jnp.asarray(dep)
-    batches = [batch(i) for i in range(iters + 1)]
-    state, stats, total = step(state, *batches[0])  # compile + bootstrap
-    jax.block_until_ready(stats)
-    t0 = time.perf_counter()
-    for i in range(iters):
-        state, stats, total = step(state, *batches[i + 1])
-    jax.block_until_ready(stats)
-    dt = time.perf_counter() - t0
-    out[n] = n * iters / dt  # camera-frames per second
-eff = out[8] / (8 * out[1])
-print(json.dumps({"cam_fps_1": round(out[1], 2), "cam_fps_8": round(out[8], 2),
-                  "scaling_efficiency": round(eff, 3)}))
-"""
-
-
 def main() -> None:
+    import jax
+
+    from densemonoslam_tpu.utils.device import card_lines, require_gpu
+
+    dev = require_gpu()
+    card = card_lines()[0]
+    print(f"card: {card}")
     n_frames = int(os.environ.get("BENCH_FRAMES", "30"))
     warmup = 4
     # 1) headline: open-loop 640x480 (loop machinery's one-off compiles would
     # dominate a cold benchmark process; measured separately below)
-    fps_open, ate_mm, eng, _, _ = _run_slam(
+    fps_open, ate_mm, eng, _, _ = run_slam(
         640, 480, n_frames, warmup, dict(open_loop=True)
     )
     # 2) closed loop over a revisit lap: fern updates + local-loop attempts
@@ -274,63 +238,46 @@ def main() -> None:
     # deform + pose-history rewrite + compaction) execute inside the timed
     # region.  Warmup spans the first lap + one closure so every loop
     # program's one-off compile lands outside the timing.
-    fps_closed, _, _, loops_timed, ms_closure = _run_slam(
-        640, 480, 60, 45,
-        dict(open_loop=False, loop_check_interval=8, time_delta=30,
-             deform_graph_sample_rate=2000, max_deform_nodes=256,
-             loop_min_inactive_frac=0.05, loop_cons_err_thresh=0.02),
-        lap=40,
+    fps_closed, _, _, loops_timed, ms_closure = run_slam(
+        640, 480, 60, 45, CLOSED_LOOP_CFG, lap=40,
     )
     # 3) relocalisation mode (device-side lost counter; <10%% headline cost)
-    fps_reloc, _, _, _, _ = _run_slam(
+    fps_reloc, _, _, _, _ = run_slam(
         640, 480, n_frames, warmup, dict(open_loop=True, relocalisation=True)
     )
     # 4) KITTI operating point 1024x320
     from densemonoslam_tpu.config import CameraIntrinsics
 
-    fps_kitti, _, _, _, _ = _run_slam(
+    fps_kitti, _, _, _, _ = run_slam(
         1024, 320, n_frames, warmup, dict(open_loop=True),
         intr=CameraIntrinsics(707.09, 707.09, 601.89, 183.11),
     )
     # 4b) DEFAULT-config operating point (pyramid_levels=3, row_stride=1):
-    # what a user gets without the benchmarked tuning (VERDICT r3 weak #8)
-    fps_default, _, _, _, _ = _run_slam(
+    # what a user gets without the benchmarked tuning
+    fps_default, _, _, _, _ = run_slam(
         640, 480, n_frames, warmup, dict(open_loop=True),
         base_cfg=dict(pyramid_levels=3, track_row_stride=1),
     )
     # 4d) reference-capacity demonstration: 1<<25 = 33.5M surfels (the
     # reference's 5700^2 ~= 32.5M, `GlobalModel.cpp:22-24`).  The windowed
     # design argues per-frame cost is capacity-independent; this proves it
-    # (and that a reference-sized map fits HBM: 2.1 GB at 64 B/row).
-    fps_32m, _, _, _, _ = _run_slam(
+    # (and that a reference-sized map fits device memory: 2.1 GB at
+    # 64 B/row).
+    fps_32m, _, _, _, _ = run_slam(
         640, 480, max(n_frames // 2, 10), warmup,
         dict(open_loop=True, max_surfels=1 << 25),
     )
     # 4c) flagship monocular street lap (KITTI operating point, full stack)
     try:
-        mono_street = _run_mono_street()
+        mono_street = run_mono_street()
     except Exception as e:  # pragma: no cover — report, don't die
         mono_street = {"error": str(e)[:200]}
-    # 5) collaborative scaling on the virtual CPU mesh (subprocess: the main
-    # process owns the TPU backend)
-    collab_info = {}
-    try:
-        proc = subprocess.run(
-            [sys.executable, "-c", _COLLAB_SCRIPT % {"repo": REPO}],
-            capture_output=True, text=True, timeout=900,
-            env={**os.environ, "JAX_PLATFORMS": "cpu"},
-        )
-        collab_info = json.loads(proc.stdout.strip().splitlines()[-1])
-    except Exception as e:  # pragma: no cover - defensive: report, don't die
-        collab_info = {
-            "error": str(e)[:120],
-            "stderr": (proc.stderr[-200:] if "proc" in dir() else ""),
-        }
-
     print(
         json.dumps(
             {
-                "metric": "slam_fps_640x480_1chip",
+                "metric": "slam_fps_640x480_1gpu",
+                "device": {"platform": dev.platform, "kind": dev.device_kind,
+                           "count": len(jax.devices()), "card": card},
                 "value": round(fps_open, 2),
                 "unit": "frames/s",
                 "vs_baseline": round(fps_open / BASELINE_FPS, 3),
@@ -352,7 +299,6 @@ def main() -> None:
                     "kitti_fps_1024x320": round(fps_kitti, 2),
                     "mono_street_kitti": mono_street,
                     "fps_at_32M_capacity": round(fps_32m, 2),
-                    "collab": collab_info,
                 },
             }
         )

@@ -1,6 +1,6 @@
-"""densemonoslam_tpu — a TPU-native dense collaborative monocular/RGB-D SLAM framework.
+"""densemonoslam_tpu — a dense collaborative monocular/RGB-D SLAM framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 robotvisionmu/DenseMonoSLAM (ElasticFusion-style surfel SLAM + monocular depth
 prediction + hybrid sparse tracking + NID keyframing + collaborative multi-map
 sessions).  The reference system splits its hot path across GLSL transform
@@ -9,8 +9,8 @@ functional state transformed by jitted steps:
 
 - the surfel map is a fixed-capacity SoA tensor (``mapping.surfel_map``), not a
   GL VBO ping-pong pair;
-- the tracking Gauss-Newton normal equations are built by a single MXU matmul
-  (``ops.reductions``), not a warp-shuffle tree reduction;
+- the tracking Gauss-Newton normal equations are built by a single Gram
+  matmul (``ops.reductions``), not a warp-shuffle tree reduction;
 - map prediction is a scatter-min z-buffer rasteriser (``ops.splat``), not a
   point-sprite render pass;
 - the deformation-graph solve is an on-device dense/CG Gauss-Newton
@@ -22,22 +22,17 @@ functional state transformed by jitted steps:
 import jax as _jax
 
 # SLAM is a geometry pipeline, not a neural net: poses chain multiplicatively
-# and the GN normal equations difference near-equal quantities, so the TPU
-# default of bf16 MXU passes for f32 matmuls (~8 mantissa bits, ~4e-3
-# relative) injects millimetre-level noise into every vertex transform and
-# Gram reduction — measured 59 mm ATE on-chip vs 0.7 mm on CPU for the same
-# code.  Force true-f32 matmuls package-wide (the 6-pass bf16 emulation);
-# every geometry matmul here is skinny (K<=32 Gram factors, 3x3/4x4 poses),
-# so the 6x FLOP cost is noise next to the bandwidth-bound image passes.
-# Model code that genuinely wants bf16 (DepthNet convs) can request
-# precision='default' per-op.
+# and the GN normal equations difference near-equal quantities.  A GPU may
+# run f32 matmuls in TF32 (10 mantissa bits, ~5e-4 relative), which would put
+# millimetre-level noise into every vertex transform and Gram reduction, so
+# true-f32 matmuls are forced package-wide.  Every geometry matmul here is
+# skinny (K<=32 Gram factors, 3x3/4x4 poses) and bandwidth-bound, so the
+# extra arithmetic is cheap.  Model code that wants reduced precision can
+# request precision='default' per op.
 _jax.config.update("jax_default_matmul_precision", "highest")
 
-# Persistent XLA compilation cache: several pipeline programs (compaction at
-# multi-million-row capacity, bundle adjustment, loop closures) cost 5-15 s
-# EACH to compile and first run mid-sequence — the cache makes that a
-# once-per-machine cost instead of a live-pipeline stall.  DMS_JAX_CACHE=0
-# opts out.
+# Persistent XLA compilation cache (see `utils.jax_cache`): programs that
+# first run mid-sequence would otherwise stall a live pipeline.
 from densemonoslam_tpu.utils import jax_cache as _jax_cache
 
 _jax_cache.enable()

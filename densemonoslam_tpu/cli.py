@@ -28,7 +28,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--out", default=None, help="export directory")
     ap.add_argument("--frames", type=int, default=60, help="max frames (`--e` end)")
     ap.add_argument("--skip", type=int, default=0, help="skip first N (`--s`)")
-    ap.add_argument("--platform", default=None, choices=[None, "cpu", "tpu"])
+    ap.add_argument("--platform", default=None, choices=[None, "cpu", "gpu"],
+                    help="cpu forces the CPU backend; gpu fails unless JAX's "
+                         "default device is a GPU")
     # engine flags (reference two-letter names in help)
     ap.add_argument("--open-loop", action="store_true", help="`--o` disable loops")
     ap.add_argument("--no-nid", action="store_true", help="`--nkf` disable NID keyframing")
@@ -87,11 +89,30 @@ def build_parser() -> argparse.ArgumentParser:
                     help="cameras to wait for before starting (reference "
                          "MainController camera wait loop)")
     ap.add_argument("--width", type=int, default=None,
-                    help="frame width for --logs sessions (default: dataset "
-                         "operating point; intrinsics scale with it)")
+                    help="frame width for synthetic and --logs sessions "
+                         "(default: dataset operating point; intrinsics "
+                         "scale with it)")
     ap.add_argument("--height", type=int, default=None,
-                    help="frame height for --logs sessions")
+                    help="frame height for synthetic and --logs sessions")
     return ap
+
+
+def _scaled_camera(camera, width, height):
+    """`camera` resampled to width x height, intrinsics scaled with it."""
+    from densemonoslam_tpu.config import (
+        CameraConfig, CameraIntrinsics, FrameResolution,
+    )
+
+    r0 = camera.resolution
+    sx, sy = width / r0.width, height / r0.height
+    i0 = camera.intrinsics
+    return CameraConfig(
+        FrameResolution(width, height),
+        CameraIntrinsics(i0.fx * sx, i0.fy * sy,
+                         (i0.cx + 0.5) * sx - 0.5,
+                         (i0.cy + 0.5) * sy - 0.5),
+        camera.name,
+    )
 
 
 def make_reader(args):
@@ -103,6 +124,8 @@ def make_reader(args):
         seq = SyntheticSequence(
             num_frames=max(args.frames + args.skip, 40), radius=0.35, max_angle=0.3
         )
+        if args.width and args.height:
+            seq.camera = _scaled_camera(seq.camera, args.width, args.height)
         return seq, seq.camera, 1.0
     if args.dataset == "tum":
         from densemonoslam_tpu.io.datasets import TumRgbdReader
@@ -141,20 +164,7 @@ def _run_multi(args) -> int:
         if args.dataset == "kitti" else CameraConfig.tum_default()
     )
     if args.width and args.height:
-        from densemonoslam_tpu.config import (
-            CameraIntrinsics, FrameResolution,
-        )
-
-        r0 = camera.resolution
-        sx, sy = args.width / r0.width, args.height / r0.height
-        i0 = camera.intrinsics
-        camera = CameraConfig(
-            FrameResolution(args.width, args.height),
-            CameraIntrinsics(i0.fx * sx, i0.fy * sy,
-                             (i0.cx + 0.5) * sx - 0.5,
-                             (i0.cy + 0.5) * sy - 0.5),
-            camera.name,
-        )
+        camera = _scaled_camera(camera, args.width, args.height)
     res = camera.resolution
     cfg = EngineConfig(
         time_delta=args.time_delta,
@@ -239,14 +249,25 @@ def main(argv=None) -> int:
         import jax
 
         jax.config.update("jax_platforms", "cpu")
+    if args.platform == "gpu":
+        from densemonoslam_tpu.utils.device import require_gpu
 
+        require_gpu()
+
+    if args.logs or args.live_port is not None:
+        return _run_multi(args)
+    run_sequence(args)
+    return 0
+
+
+def run_sequence(args) -> dict:
+    """Replay one camera's sequence through the engine; prints progress and
+    returns a summary (frames, fps, surfels, and ATE in mm when ground truth
+    is available)."""
     import numpy as np
 
     from densemonoslam_tpu.config import EngineConfig
     from densemonoslam_tpu.engine import Engine
-
-    if args.logs or args.live_port is not None:
-        return _run_multi(args)
 
     reader, camera, depth_factor = make_reader(args)
     cfg = EngineConfig(
@@ -344,13 +365,15 @@ def main(argv=None) -> int:
     jax.block_until_ready(eng.frontends["cam0"].state.map_data)
     fps = (n - 2) / (time.perf_counter() - t0) if t0 and n > 2 else 0.0
 
-    print(f"processed {n} frames at {fps:.1f} fps; surfels={eng.surfel_count('cam0')}")
+    summary = {"frames": n, "fps": fps, "surfels": eng.surfel_count("cam0")}
+    print(f"processed {n} frames at {fps:.1f} fps; surfels={summary['surfels']}")
     if args.dataset == "synthetic":
         from densemonoslam_tpu.eval import ate_rmse
 
         gt = [reader.gt_pose(i + args.skip) for i in range(n)]
         est = [p for _, p in eng.frontends["cam0"].trajectory]
-        print(f"ATE RMSE vs analytic GT: {ate_rmse(est, gt)*1000:.2f} mm")
+        summary["ate_mm"] = ate_rmse(est, gt) * 1000
+        print(f"ATE RMSE vs analytic GT: {summary['ate_mm']:.2f} mm")
     elif args.gt:
         from densemonoslam_tpu.eval import ate_rmse
         from densemonoslam_tpu.io.datasets import load_freiburg_trajectory
@@ -358,7 +381,8 @@ def main(argv=None) -> int:
         _, gt_poses = load_freiburg_trajectory(args.gt)
         est = [p for _, p in eng.frontends["cam0"].trajectory]
         k = min(len(gt_poses), len(est))
-        print(f"ATE RMSE: {ate_rmse(est[:k], list(gt_poses[:k]))*1000:.2f} mm")
+        summary["ate_mm"] = ate_rmse(est[:k], list(gt_poses[:k])) * 1000
+        print(f"ATE RMSE: {summary['ate_mm']:.2f} mm")
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -382,7 +406,7 @@ def main(argv=None) -> int:
             except KeyboardInterrupt:
                 pass
         viewer.stop()
-    return 0
+    return summary
 
 
 if __name__ == "__main__":

@@ -1,11 +1,11 @@
 """Camera managers: uniform discovery/ingest over logs and live streams.
 
-TPU-native equivalents of the reference manager suite
+Equivalents of the reference manager suite
 (`GUI/src/Tools/MultiCameraManagerFactory.h:13-45` picks between
 `MultiLogCameraManager` for N log files, `MultiLiveCameraManager` for LCM
 live streams, `MultiMixedCameraManager` when fewer logs than sensors are
 given, and `MultiUsbCameraManager` for OpenNI2/RealSense — the USB path has
-no equivalent here: TPU hosts have no camera bus).
+no equivalent here: accelerator hosts have no camera bus).
 
 All managers speak one protocol (the shape `MainController::run`'s per-camera
 loop expects, `MainController.cpp:262-400`):

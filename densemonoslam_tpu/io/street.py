@@ -49,8 +49,7 @@ class StreetScene:
         self.top_y = cam_height - wall_height
         rng = np.random.default_rng(seed)
         # parked props: spheres resting on the ground along both kerbs.
-        # `aliased` builds a perceptual-aliasing stressor (VERDICT r4 weak
-        # #4): the prop layout of the first half-ring is REPEATED rotated by
+        # `aliased` builds a perceptual-aliasing stressor: the prop layout of the first half-ring is REPEATED rotated by
         # pi, so the street at angle a and a+pi looks locally identical —
         # two visually similar but geometrically distinct places.  Loop
         # retrieval must not close across them.

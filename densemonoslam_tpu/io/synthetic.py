@@ -139,8 +139,7 @@ def render_frame(
     `depth_noise` adds per-pixel Gaussian depth noise (sensor model);
     `exposure_jitter` applies a per-frame random gain/bias to the image (auto
     -exposure drift) — both break the pixel-exactness of the oracle so tests
-    and benches can measure robustness, not just the fixture (VERDICT r3
-    weak #4)."""
+    and benches can measure robustness, not just the fixture."""
     W, H = res.width, res.height
     u = np.arange(W, dtype=np.float64)
     v = np.arange(H, dtype=np.float64)

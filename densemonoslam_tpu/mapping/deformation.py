@@ -1,6 +1,6 @@
 """Embedded deformation graph for non-rigid map correction (loop closure).
 
-TPU-native equivalent of the reference `Deformation` + `DeformationGraph`
+Equivalent of the reference `Deformation` + `DeformationGraph`
 (`Core/src/Deformation.cpp`, `Core/src/DeformationGraph.cpp`): Sumner-style
 embedded deformation over a *time-ordered* node sequence sampled from the
 surfel map (1 node per `sample_rate` surfels, `Deformation.cpp:251-348`),
@@ -164,52 +164,6 @@ def _blend_weights(
     return nn, w
 
 
-def _blend_weights_full(
-    graph: DeformGraph, points: jnp.ndarray, times: jnp.ndarray
-) -> jnp.ndarray:
-    """[P, K] dense k-NN blending weights (zero outside the k nearest of the
-    temporal look-back window) — the matmul-friendly form of
-    `_blend_weights`.
-
-    Distances to ALL K nodes come from ONE [P,3]x[3,K] matmul (MXU) with the
-    temporal window applied as a mask; the per-point candidate GATHER of the
-    old form cost ~20 fetched rows per surfel and dominated whole-map
-    deformation (measured 1.9 s at a 2M-surfel map — gathers price per row
-    fetched, matmuls don't)."""
-    n_valid = jnp.sum(graph.valid.astype(jnp.int32))
-    ins = jnp.searchsorted(graph.time, times, side="right")
-    start = jnp.clip(ins - LOOKBACK, 0, jnp.maximum(n_valid - LOOKBACK, 0))
-    K = graph.n_nodes
-    j = jnp.arange(K)
-    mask = (
-        (j[None, :] >= start[:, None])
-        & (j[None, :] < start[:, None] + LOOKBACK)
-        & (j[None, :] < n_valid)
-        & graph.valid[None, :]
-    )
-    d2 = (
-        jnp.sum(points * points, axis=-1, keepdims=True)
-        - 2.0 * points @ graph.pos.T
-        + jnp.sum(graph.pos * graph.pos, axis=-1)[None, :]
-    )
-    d = jnp.sqrt(jnp.maximum(d2, 0.0))
-    d = jnp.where(mask, d, jnp.inf)
-    # k+1 nearest for the dmax normaliser (Sumner's weights)
-    neg, top_idx = jax.lax.top_k(-d, K_NEIGHBOURS + 1)
-    dk = -neg  # [P, k+1] ascending distances
-    dmax = jnp.maximum(dk[:, -1:], 1e-6)
-    w = jnp.square(1.0 - dk[:, :-1] / dmax)
-    w = jnp.where(jnp.isfinite(dk[:, :-1]), w, 0.0)
-    wsum = jnp.sum(w, axis=-1, keepdims=True)
-    has = wsum[:, 0] > 1e-9
-    w = jnp.where(has[:, None], w / jnp.maximum(wsum, 1e-9), 0.0)
-    # scatter the k weights into dense [P, K] rows via one-hot compares
-    w_full = jnp.zeros((points.shape[0], K), jnp.float32)
-    for q in range(K_NEIGHBOURS):
-        w_full = w_full + (j[None, :] == top_idx[:, q][:, None]) * w[:, q][:, None]
-    return w_full
-
-
 def deform_points(
     graph: DeformGraph,
     points: jnp.ndarray,
@@ -219,20 +173,15 @@ def deform_points(
     """phi(p) = sum_k w_k [A_k (p - g_k) + g_k + t_k]; points with no valid
     support pass through unchanged.  Optionally co-rotates normals.
 
-    Evaluated in the matmul form
-    ``phi(p) = (sum_k w_k A_k) p + sum_k w_k (g_k + t_k - A_k g_k)``:
-    both sums are [P,K] x [K,*] products of the dense blending weights with
-    per-NODE tables — everything lands on the MXU and per-point node
-    gathers disappear (they dominated whole-map deformation; see
-    `_blend_weights_full`)."""
-    w_full = _blend_weights_full(graph, points, times)
-    K = graph.n_nodes
-    A_blend = (w_full @ graph.A.reshape(K, 9)).reshape(-1, 3, 3)
-    # per-node constant term c_k = g_k + t_k - A_k g_k
+    Evaluated as ``phi(p) = (sum_k w_k A_k) p + sum_k w_k c_k`` with the
+    per-node constant ``c_k = g_k + t_k - A_k g_k``: each point gathers its k
+    blending nodes' rows from two small per-node tables."""
+    nn, w = _blend_weights(graph, points, times)
+    A_blend = jnp.einsum("pk,pkij->pij", w, graph.A[nn])
     c = graph.pos + graph.t - jnp.einsum("kij,kj->ki", graph.A, graph.pos)
-    b = w_full @ c
+    b = jnp.einsum("pk,pki->pi", w, c[nn])
     out = jnp.einsum("pij,pj->pi", A_blend, points) + b
-    has = jnp.sum(w_full, axis=-1) > 1e-9
+    has = jnp.sum(w, axis=-1) > 1e-9
     out = jnp.where(has[:, None], out, points)
     if normals is None:
         return out
@@ -240,6 +189,23 @@ def deform_points(
     n_out = n_out / jnp.maximum(jnp.linalg.norm(n_out, axis=-1, keepdims=True), 1e-9)
     n_out = jnp.where(has[:, None], n_out, normals)
     return out, n_out
+
+
+def deform_rows(
+    graph: DeformGraph, rows: jnp.ndarray, row0: jnp.ndarray, count: jnp.ndarray
+) -> jnp.ndarray:
+    """Deform the position and normal of every live surfel in a block of map
+    rows [R, COLS] whose first row is map row `row0`; rows at or beyond
+    `count`, or with zero confidence, pass through unchanged.  The one
+    per-row function behind `apply_to_map` and the map-sharded apply
+    (`parallel.map_shard`)."""
+    pts = rows[:, sm.POS]
+    nrm = rows[:, sm.NORMAL]
+    idx = row0 + jnp.arange(rows.shape[0])
+    alive = ((rows[:, sm.CONF] > 0) & (idx < count))[:, None]
+    new_p, new_n = deform_points(graph, pts, rows[:, sm.INIT_TIME], nrm)
+    rows = rows.at[:, sm.POS].set(jnp.where(alive, new_p, pts))
+    return rows.at[:, sm.NORMAL].set(jnp.where(alive, new_n, nrm))
 
 
 def _energy_residuals(
@@ -378,11 +344,11 @@ def optimise(
     return out, OptimiseStats(initial_error=e0, final_error=e1, mean_cons_error=ce)
 
 
-def _on_tpu() -> bool:
-    try:
-        return jax.devices()[0].platform == "tpu"
-    except Exception:  # pragma: no cover
-        return False
+# rows per `apply_to_map` block: bounds the per-row transients ([rows, 20]
+# candidate distances and their indices, ~160 MB) at any map capacity.  On
+# an H100 a 4M-row apply takes 8.4 ms in 2^20-row blocks and 14.0 ms in
+# 2^16-row ones (more, shorter loop steps); unchunked is no faster.
+APPLY_CHUNK = 1 << 20
 
 
 @functools.partial(jax.jit, donate_argnames=("data",))
@@ -391,66 +357,24 @@ def apply_to_map(data: jnp.ndarray, count: jnp.ndarray, graph: DeformGraph) -> j
     reference's pipeline: `copy_unstable.vert:150-320` applies the serialised
     rawGraph to all map surfels during clean).
 
-    On TPU this is ONE Pallas kernel (`ops.pallas.deform`): the [P, K]
-    distance/weight tensors live and die in VMEM per point block, so HBM
-    traffic is inputs + outputs only — measured 3.3x over the best XLA
-    lowering at a 4M-row map (600 -> 181 ms), which either gathers per
-    candidate or materialises 4 GB [P, K] buffers.
-
-    The XLA fallback (CPU tests, non-TPU platforms) processes row CHUNKS:
-    `deform_points` materialises [chunk, K] weight tensors, and chunking
-    bounds the transient (the whole-map form was a 40 GB compile-time OOM
-    at the reference's multi-million-surfel capacities)."""
-    if _on_tpu():
-        from densemonoslam_tpu.ops.pallas.deform import deform_soa_pallas
-
-        rows = data[:-1]
-        pts_T = jnp.stack([rows[:, 0], rows[:, 1], rows[:, 2]])
-        nrm_T = jnp.stack([rows[:, 8], rows[:, 9], rows[:, 10]])
-        new_p, new_n = deform_soa_pallas(
-            graph.pos, graph.time, graph.valid, graph.A, graph.t,
-            pts_T, rows[:, sm.INIT_TIME], nrm_T,
-        )
-        idx = jnp.arange(rows.shape[0])
-        alive = (rows[:, sm.CONF] > 0) & (idx < count)
-        for c in range(3):
-            data = data.at[:-1, sm.POS.start + c].set(
-                jnp.where(alive, new_p[c], rows[:, sm.POS.start + c])
-            )
-            data = data.at[:-1, sm.NORMAL.start + c].set(
-                jnp.where(alive, new_n[c], rows[:, sm.NORMAL.start + c])
-            )
-        return data
-
-    def deform_block(blk, start):
-        pts = blk[:, sm.POS]
-        nrm = blk[:, sm.NORMAL]
-        times = blk[:, sm.INIT_TIME]
-        idx = start + jnp.arange(blk.shape[0])
-        alive = (blk[:, sm.CONF] > 0) & (idx < count)
-        new_p, new_n = deform_points(graph, pts, times, nrm)
-        blk = blk.at[:, sm.POS].set(jnp.where(alive[:, None], new_p, pts))
-        blk = blk.at[:, sm.NORMAL].set(jnp.where(alive[:, None], new_n, nrm))
-        return blk
-
+    Walks the map in `APPLY_CHUNK`-row blocks through `deform_rows`, with a
+    static partial tail block, so any capacity stays chunked."""
     N = data.shape[0] - 1
-    CH = 1 << 16
-    if N <= CH:
-        blk = deform_block(data[:-1], jnp.int32(0))
-        return data.at[:-1].set(blk)
+    if N <= APPLY_CHUNK:
+        return data.at[:-1].set(deform_rows(graph, data[:-1], jnp.int32(0), count))
 
     def body(i, d):
-        start = i * CH
-        blk = jax.lax.dynamic_slice(d, (start, 0), (CH, sm.COLS))
-        blk = deform_block(blk, start)
+        start = i * APPLY_CHUNK
+        blk = jax.lax.dynamic_slice(d, (start, 0), (APPLY_CHUNK, sm.COLS))
+        blk = deform_rows(graph, blk, start, count)
         return jax.lax.dynamic_update_slice(d, blk, (start, 0))
 
-    data = jax.lax.fori_loop(0, N // CH, body, data)
-    rem = N % CH  # static partial tail block — any capacity stays chunked
+    data = jax.lax.fori_loop(0, N // APPLY_CHUNK, body, data)
+    rem = N % APPLY_CHUNK
     if rem:
-        start = (N // CH) * CH
+        start = (N // APPLY_CHUNK) * APPLY_CHUNK
         blk = jax.lax.dynamic_slice(data, (start, 0), (rem, sm.COLS))
-        blk = deform_block(blk, jnp.int32(start))
+        blk = deform_rows(graph, blk, jnp.int32(start), count)
         data = jax.lax.dynamic_update_slice(data, blk, (start, 0))
     return data
 

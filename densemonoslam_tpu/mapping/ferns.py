@@ -1,6 +1,6 @@
 """Random-fern keyframe encoding for place recognition and relocalisation.
 
-TPU-native equivalent of the reference `Ferns` (`Core/src/Ferns.{h,cpp}`,
+Equivalent of the reference `Ferns` (`Core/src/Ferns.{h,cpp}`,
 Glocker et al.): n=500 ferns at random pixels of the 8x-downsampled frame,
 each emitting a 4-bit code by thresholding R, G, B and depth
 (`Ferns.cpp:21-81`); a frame is kept as a fern keyframe if its minimum
@@ -12,7 +12,8 @@ an ICP refinement + photometric consistency check validate the match.
 Where the reference maintains a per-fern inverted index (`ids[16]`
 "conservatory") to scan candidates on CPU, we compare the query against the
 WHOLE database densely — [K, 500] byte codes against [500] — which is a
-trivial VPU reduction for any realistic K and removes the index bookkeeping.
+trivial elementwise reduction for any realistic K and removes the index
+bookkeeping.
 
 The database is fixed-capacity device arrays; each stored frame keeps its
 downsampled intensity/depth maps so the engine can run the reference's
@@ -159,7 +160,7 @@ def add_frame(
 
     if evict:
         def evict_slot(_):
-            # pairwise code-agreement via one MXU matmul over one-hot codes:
+            # pairwise code-agreement via one matmul over one-hot codes:
             # eq[i,j] = #ferns on which keyframes i and j agree
             F = db.codes.shape[1]
             oh = jax.nn.one_hot(db.codes, 16, dtype=jnp.bfloat16).reshape(K, -1)

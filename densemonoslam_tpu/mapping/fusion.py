@@ -1,14 +1,14 @@
 """Surfel fusion: data association, weighted-average update, new-surfel
 insertion, and map cleaning.
 
-TPU-native replacement for the reference's transform-feedback fusion passes
+Replacement for the reference's transform-feedback fusion passes
 (`Core/src/GlobalModel.cpp`): `fuse` = the data-association render
 (`Shaders/data.vert:18-190`) followed by the update pass
 (`Shaders/update.vert:18-120`: confidence-weighted running averages);
 `clean` = the copy_unstable pass (`Shaders/copy_unstable.vert:18-320`:
 free-space violation and stale-unstable culling).
 
-Scatter ops serialise on TPU, so the update pass is **pull-based**: the
+The update pass is **pull-based**, so fusion needs no scatter: the
 association render resolves, per pixel, the nearest map surfel covering it
 (`ops.splat.render`'s 3x3 disk resolve is exactly the reference data-pass
 window search); each pixel then publishes its weighted contribution into a
@@ -52,7 +52,7 @@ class FuseStats(NamedTuple):
     added: jnp.ndarray  # new surfels created
     culled: jnp.ndarray  # surfels removed by clean()
     dropped: jnp.ndarray  # insertions discarded by the capacity headroom
-    # guard — silent data loss unless surfaced (VERDICT: capacity accounting)
+    # guard — silent data loss unless surfaced
 
 
 def sample_confidence(
@@ -148,8 +148,8 @@ def fuse_window(
     that *returns* the map forces full-buffer copies that scale with N).
 
     `pack_sorted=False` (the default) leaves `packed` in pixel order and the
-    placement is ONE row scatter keyed on `rank` — an argsort over HW rows
-    costs ~5 ms at 1024x320 and the scatter replaces it outright.  Callers
+    placement is ONE row scatter keyed on `rank`, which replaces an argsort
+    over HW rows outright.  Callers
     that must TRUNCATE `packed` before placing (map capacity < HW: the
     truncation would drop real new rows from arbitrary pixels) pass
     `pack_sorted=True` to get the old new-rows-first stable sort, with
@@ -203,11 +203,10 @@ def fuse_window(
 
     # Dense image-space pre-accumulation: for each pixel CELL, sum the 3x3
     # neighbourhood's payload rows addressed to that cell's winning surfel
-    # (static shifts — pure VPU work).  Every matched pixel lies within
-    # splat_k//2 of its winner's centre cell by construction of the render's
-    # disk resolve, so each surfel then needs exactly ONE gather (its centre
-    # cell) instead of nine — on TPU, gather cost ~ rows fetched, and the old
-    # 9-tap per-surfel pull was the single most expensive op in fusion.
+    # (static shifts — pure elementwise work).  Every matched pixel lies
+    # within splat_k//2 of its winner's centre cell by construction of the
+    # render's disk resolve, so each surfel then needs exactly ONE gather (its
+    # centre cell) instead of nine.
     # Key the accumulation cells on the RAW pre-resolve z-buffer winner, not
     # the post-disk-resolve `pred.index`: a surfel that won its cell but whose
     # centre pixel resolved to a nearer overlapping neighbour would otherwise
@@ -344,13 +343,11 @@ def place_updates(
 
     The insertion region [count, count+n_new) is CONTIGUOUS and `rank` is
     monotone in pixel order, so the appended block can be assembled with a
-    `searchsorted` + row gather and written with ONE dynamic_update_slice.
-    An XLA:TPU row scatter serializes per update row (~measured 35 ms for a
-    1024x320 frame into a 4M-row map — the single most expensive op in the
-    whole fused step); the gather form is ~3 ms and bit-identical on every
-    allocated row (only the dump slot N, defined as garbage, differs).
-    Capacities smaller than one frame keep the scatter path (the slice
-    window would exceed the buffer).
+    `searchsorted` + row gather and written with ONE dynamic_update_slice,
+    bit-identical to a row scatter on every allocated row (only the dump
+    slot N, defined as garbage, differs).  Capacities smaller than one frame
+    keep the scatter path (the slice window would exceed the buffer).  Which
+    of the two is faster on the H100 is not measured yet.
     Returns ``(data, new_count, n_new, dropped)``."""
     N = data.shape[0] - 1
     S = packed.shape[0]

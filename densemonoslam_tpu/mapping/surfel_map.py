@@ -1,6 +1,6 @@
 """Fixed-capacity surfel map as a functional SoA tensor.
 
-TPU-native replacement for the reference `GlobalModel`
+Replacement for the reference `GlobalModel`
 (`Core/src/GlobalModel.{h,cpp}`): there the map is a double-buffered OpenGL
 VBO pair updated by transform-feedback passes (TEXTURE_DIMENSION=5700 ->
 ~32.5M surfels, 60 B each: pos+conf, packed color+initTime, normal+radius,

@@ -4,14 +4,16 @@ The reference runs a pre-trained ONNX depth CNN ("normnet_float{16,32}
 _opset12.onnx") through ONNX Runtime's CUDA EP to turn a single RGB stream
 into RGB-D for monocular/KITTI operation
 (`GUI/src/Tools/DepthPrediction.cpp:3-169`: input NCHW float RGB/255, output
-metric depth scaled x1000 to uint16 mm).  Here the network is a native
-flax/JAX model so it runs on the TPU inside the same jitted step as the rest
-of the pipeline — no runtime boundary, bf16-friendly:
+metric depth scaled x1000 to uint16 mm).  Here the network is plain JAX
+(`lax.conv_general_dilated`, group norm, ELU) so it runs on the accelerator
+next to the rest of the pipeline, with no runtime boundary:
 
 - a compact U-Net (strided conv encoder, skip-connected decoder) emitting
   a disparity map through a sigmoid, converted to metric depth with the
   monodepth convention ``depth = 1 / (min_disp + (max_disp-min_disp)*s)``;
-- weight I/O as npz (msgpack-free, dependency-free);
+- weight I/O as npz keyed by parameter path
+  (``ConvBlock_i/Conv_0/{kernel,bias}``, ``ConvBlock_i/GroupNorm_0/{scale,bias}``,
+  ``Conv_0/{kernel,bias}``; conv kernels HWIO);
 - a supervised L1(+gradient) training step for fitting on RGB-D data — the
   path for distilling a reference checkpoint or training on a dataset with
   depth ground truth.
@@ -19,50 +21,111 @@ of the pipeline — no runtime boundary, bf16-friendly:
 
 from __future__ import annotations
 
-import functools
-from typing import Any, Sequence, Tuple
+import itertools
+from typing import Any, Dict, Sequence
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-
-class ConvBlock(nn.Module):
-    features: int
-    stride: int = 1
-
-    @nn.compact
-    def __call__(self, x):
-        x = nn.Conv(self.features, (3, 3), strides=(self.stride, self.stride))(x)
-        x = nn.GroupNorm(num_groups=min(8, self.features))(x)
-        return nn.elu(x)
+GROUPNORM_EPS = 1e-6
 
 
-class DepthNet(nn.Module):
+def _conv(p: Dict[str, jnp.ndarray], x: jnp.ndarray, stride: int = 1) -> jnp.ndarray:
+    """3x3 'SAME' convolution, NHWC activations, HWIO kernel, plus bias."""
+    y = jax.lax.conv_general_dilated(
+        x, p["kernel"], (stride, stride), "SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+    )
+    return y + p["bias"]
+
+
+def _group_norm(p: Dict[str, jnp.ndarray], x: jnp.ndarray, groups: int) -> jnp.ndarray:
+    """Group normalisation over (H, W, channels of the group) per sample,
+    with per-channel scale and bias."""
+    B, H, W, C = x.shape
+    g = x.reshape(B, H, W, groups, C // groups)
+    mean = jnp.mean(g, axis=(1, 2, 4), keepdims=True)
+    var = jnp.maximum(jnp.mean(g * g, axis=(1, 2, 4), keepdims=True) - mean * mean, 0.0)
+    y = (g - mean) * jax.lax.rsqrt(var + GROUPNORM_EPS)
+    return y.reshape(B, H, W, C) * p["scale"] + p["bias"]
+
+
+def _conv_block(p: Dict[str, Any], x: jnp.ndarray, stride: int = 1) -> jnp.ndarray:
+    x = _conv(p["Conv_0"], x, stride)
+    return jax.nn.elu(_group_norm(p["GroupNorm_0"], x, min(8, x.shape[-1])))
+
+
+class DepthNet:
     """U-Net depth predictor.  `widths` controls capacity; the default is a
-    ~1.5M-parameter model suited to 1024x320 KITTI feeds."""
+    ~1.5M-parameter model suited to 1024x320 KITTI feeds.
 
-    widths: Sequence[int] = (32, 64, 128, 256)
-    min_depth: float = 0.5
-    max_depth: float = 80.0
+    Parameters are a nested dict ``{"ConvBlock_i": {...}, "Conv_0": {...}}``
+    with blocks numbered in call order: per width an encoder block and its
+    stride-2 block, the bottleneck block, then one decoder block per width."""
 
-    @nn.compact
-    def __call__(self, rgb: jnp.ndarray) -> jnp.ndarray:
+    def __init__(
+        self,
+        widths: Sequence[int] = (32, 64, 128, 256),
+        min_depth: float = 0.5,
+        max_depth: float = 80.0,
+    ):
+        self.widths = tuple(widths)
+        self.min_depth = min_depth
+        self.max_depth = max_depth
+
+    def _block_channels(self):
+        """(in, out) channels of each ConvBlock in call order, and the
+        head's input channels."""
+        io, c = [], 3
+        for w in self.widths:
+            io += [(c, w), (w, w)]
+            c = w
+        io.append((c, self.widths[-1]))
+        c = self.widths[-1]
+        for w in reversed(self.widths):
+            io.append((c + w, w))
+            c = w
+        return io, c
+
+    def init(self, key: jax.Array, rgb: jnp.ndarray) -> Dict[str, Any]:
+        """Random parameters (LeCun-normal conv kernels, zero biases, unit
+        group-norm scales) as ``{"params": tree}``; `rgb` only fixes dtype."""
+        io, c_head = self._block_channels()
+        keys = jax.random.split(key, len(io) + 1)
+        init = jax.nn.initializers.lecun_normal()
+        dt = rgb.dtype
+
+        def conv(k, cin, cout):
+            return {"kernel": init(k, (3, 3, cin, cout), dt), "bias": jnp.zeros((cout,), dt)}
+
+        params = {
+            f"ConvBlock_{i}": {
+                "Conv_0": conv(keys[i], cin, cout),
+                "GroupNorm_0": {"scale": jnp.ones((cout,), dt), "bias": jnp.zeros((cout,), dt)},
+            }
+            for i, (cin, cout) in enumerate(io)
+        }
+        params["Conv_0"] = conv(keys[-1], c_head, 1)
+        return {"params": params}
+
+    def apply(self, variables: Dict[str, Any], rgb: jnp.ndarray) -> jnp.ndarray:
         """rgb f32 [B,H,W,3] in [0,1] -> metric depth [B,H,W]."""
+        p = variables["params"]
+        blocks = (p[f"ConvBlock_{i}"] for i in itertools.count())
         skips = []
         x = rgb
-        for w in self.widths:
-            x = ConvBlock(w)(x)
+        for _ in self.widths:
+            x = _conv_block(next(blocks), x)
             skips.append(x)
-            x = ConvBlock(w, stride=2)(x)
-        x = ConvBlock(self.widths[-1])(x)
-        for w, s in zip(reversed(self.widths), reversed(skips)):
+            x = _conv_block(next(blocks), x, stride=2)
+        x = _conv_block(next(blocks), x)
+        for s in reversed(skips):
             B, H, W, C = s.shape
             x = jax.image.resize(x, (x.shape[0], H, W, x.shape[-1]), "bilinear")
             x = jnp.concatenate([x, s], axis=-1)
-            x = ConvBlock(w)(x)
-        disp = nn.sigmoid(nn.Conv(1, (3, 3))(x)[..., 0])
+            x = _conv_block(next(blocks), x)
+        disp = jax.nn.sigmoid(_conv(p["Conv_0"], x)[..., 0])
         min_disp = 1.0 / self.max_depth
         max_disp = 1.0 / self.min_depth
         return 1.0 / (min_disp + (max_disp - min_disp) * disp)
@@ -79,27 +142,11 @@ class DepthPredictor:
         min_depth: float = 0.5,
         max_depth: float = 80.0,
         seed: int = 0,
-        compute_dtype=None,
     ):
         self.net = DepthNet(widths=widths, min_depth=min_depth, max_depth=max_depth)
         self._params = params
         self._seed = seed
-        # optional reduced-precision inference (e.g. jnp.bfloat16): params and
-        # activations cast for the forward pass, output back to f32 (measured
-        # depth deviation ~0.25% — an order below the CNN's own ~6% error).
-        # Default stays f32: on the current single-chip backend the f32 convs
-        # measure FASTER than bf16 (1.95 vs 17.0 ms at 1024x320 — the bf16
-        # conv path is unoptimised there), so bf16 is opt-in for platforms
-        # where the MXU bf16 path wins.
-        self._compute_dtype = compute_dtype
-
-        def _fwd(p, x):
-            if self._compute_dtype is not None:
-                p = jax.tree.map(lambda a: a.astype(self._compute_dtype), p)
-                x = x.astype(self._compute_dtype)
-            return self.net.apply({"params": p}, x).astype(jnp.float32)
-
-        self._apply = jax.jit(_fwd)
+        self._apply = jax.jit(lambda p, x: self.net.apply({"params": p}, x))
 
     def init_for(self, height: int, width: int) -> None:
         if self._params is None:

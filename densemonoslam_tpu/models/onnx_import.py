@@ -16,7 +16,7 @@ decoding just enough of the protobuf wire format:
     TensorProto.raw_data    = field 9  (bytes, little-endian)
 
 `load_initializers(path)` returns ``{name: np.ndarray}``;
-`onnx_conv_to_flax(w)`` converts ONNX conv layout OIHW -> flax HWIO.
+`onnx_conv_to_hwio(w)`` converts ONNX conv layout OIHW -> JAX HWIO.
 """
 
 from __future__ import annotations
@@ -124,24 +124,24 @@ def load_initializers(path: str) -> Dict[str, np.ndarray]:
     return out
 
 
-def onnx_conv_to_flax(w: np.ndarray) -> np.ndarray:
-    """ONNX/torch conv weight OIHW -> flax/JAX conv HWIO."""
+def onnx_conv_to_hwio(w: np.ndarray) -> np.ndarray:
+    """ONNX/torch conv weight OIHW -> JAX conv HWIO."""
     return np.transpose(w, (2, 3, 1, 0))
 
 
 def load_depthnet_params(path: str, name_map: Dict[str, str]) -> dict:
-    """Build a flax param tree for `models.depthnet.DepthNet` from ONNX
-    initializers.  `name_map` maps ONNX initializer names to flax param paths
+    """Build a param tree for `models.depthnet.DepthNet` from ONNX
+    initializers.  `name_map` maps ONNX initializer names to param paths
     like ``"enc0/Conv_0/kernel"``; conv kernels are re-laid-out OIHW->HWIO.
     """
     raw = load_initializers(path)
     params: dict = {}
-    for onnx_name, flax_path in name_map.items():
+    for onnx_name, param_path in name_map.items():
         arr = raw[onnx_name]
-        if flax_path.endswith("/kernel") and arr.ndim == 4:
-            arr = onnx_conv_to_flax(arr)
+        if param_path.endswith("/kernel") and arr.ndim == 4:
+            arr = onnx_conv_to_hwio(arr)
         node = params
-        parts = flax_path.split("/")
+        parts = param_path.split("/")
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = arr.astype(np.float32)

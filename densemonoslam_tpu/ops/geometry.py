@@ -1,7 +1,7 @@
 """Camera-geometry ops: back-projection (vertex maps), normal maps,
 projection, and bilinear sampling.
 
-TPU-native replacements for the reference's `createVMap`/`createNMap`/
+Replacements for the reference's `createVMap`/`createNMap`/
 `tranformMaps`/`projectToPointCloud` CUDA kernels
 (`Core/src/Cuda/cudafuncs.cu`) — all pure XLA elementwise/stencil code.
 
@@ -75,7 +75,7 @@ def transform_maps(
     """Rigidly transform vertex+normal maps, keeping invalid markers
     (reference `tranformMaps`)."""
     valid = vmap[..., 2] > 0
-    # elementwise (VPU, exact f32) — see utils.se3.transform_points
+    # elementwise (exact f32) — see utils.se3.transform_points
     v = jnp.sum(T[:3, :3] * vmap[..., None, :], axis=-1) + T[:3, 3]
     n = jnp.sum(T[:3, :3] * nmap[..., None, :], axis=-1)
     return jnp.where(valid[..., None], v, 0.0), jnp.where(valid[..., None], n, 0.0)

@@ -1,11 +1,11 @@
 """Joint histograms + Normalised Information Distance (NID).
 
-TPU-native replacement for the reference's NID CUDA kernels
+Replacement for the reference's NID CUDA kernels
 (`Core/src/Cuda/cudafuncs.cu:999-1358` joint-histogram kernels, host entropy
 assembly :1358-1915, orchestrated by `Core/src/MutualInformation.cpp`).
 
 The 64x64 image joint histogram is computed as a one-hot Gram matmul
-(``onehot(A)^T @ onehot(B)``) which lands directly on the MXU; the
+(``onehot(A)^T @ onehot(B)``) — one matmul; the
 500-bin depth histogram would make that one-hot too wide to be
 bandwidth-sane, so it uses a scatter-add over flattened bin pairs instead.
 Entropy assembly runs on device (the reference downloads the histogram and
@@ -44,7 +44,7 @@ def nid_from_joint(joint: jnp.ndarray) -> jnp.ndarray:
 def joint_histogram_matmul(
     a: jnp.ndarray, b: jnp.ndarray, valid: jnp.ndarray, bins: int, vmax: float
 ) -> jnp.ndarray:
-    """[P] signals -> [bins, bins] joint histogram via one-hot MXU matmul.
+    """[P] signals -> [bins, bins] joint histogram via a one-hot matmul.
     Suitable for small bin counts (image: 64)."""
     scale = bins / vmax
     ia = jnp.clip((a * scale).astype(jnp.int32), 0, bins - 1)

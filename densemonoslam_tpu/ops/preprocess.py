@@ -1,13 +1,13 @@
 """Frame preprocessing ops: bilateral depth filter, depth→metric conversion,
 Gaussian pyramids, intensity conversion, Sobel gradients.
 
-TPU-native replacements for the reference's GLSL compute-via-FBO passes
+Replacements for the reference's GLSL compute-via-FBO passes
 (`Core/src/Shaders/depth_bilateral.frag`, `depth_metric.frag`,
 `depth_norm.frag`; wrapped by `ComputePack`) and CUDA pyramid helpers
 (`Core/src/Cuda/cudafuncs.cu`: `pyrDown`, `pyrDownGauss`, `imageBGRToIntensity`,
 `computeDerivativeImages`).  Everything here is pure XLA — stencil windows are
 expressed as `lax.reduce_window` / explicit shifted adds which XLA fuses and
-vectorises onto the VPU; no Pallas needed at these sizes.
+vectorises into fused elementwise work; no kernel needed at these sizes.
 
 All image tensors are [H, W] or [H, W, C], f32, row-major.
 """
@@ -43,9 +43,8 @@ def rgb_to_intensity(rgb: jnp.ndarray) -> jnp.ndarray:
 def _shifted(img: jnp.ndarray, dy: int, dx: int) -> jnp.ndarray:
     """Shift with edge clamping (replicate border).
 
-    Implemented as pad+static-slice, which XLA compiles to pure data movement
-    — a gather-based formulation serialises on TPU (~13 ns/element) and made
-    the whole preprocessing stack two orders of magnitude slower."""
+    Implemented as pad+static-slice, which XLA compiles to pure data
+    movement instead of a gather."""
     H, W = img.shape[0], img.shape[1]
     py0, py1 = max(dy, 0), max(-dy, 0)
     px0, px1 = max(dx, 0), max(-dx, 0)

@@ -1,13 +1,13 @@
 """Surfel splat rasterisation via scatter-min z-buffering.
 
-TPU-native replacement for the reference's `IndexMap` render passes
+Replacement for the reference's `IndexMap` render passes
 (`Core/src/IndexMap.cpp`: `predictIndices` renders surfel IDs + attributes for
 data association; `combinedPredict` splat-renders predicted image/vertex/
 normal/time maps in ACTIVE/INACTIVE time-window modes; splat geometry in
 `Shaders/splat.vert` / `combo_splat.frag`).
 
-XLA lowers scatters to ~serialised loops on TPU, so the design minimises
-scatter *ops* (cost scales with update count, and rows don't amortise):
+The design minimises scatter *ops*, whose cost scales with the update
+count:
 
 1. ONE scatter-min of depth per surfel centre pixel (the z-test);
 2. ONE scatter-min of surfel index among depth-equal candidates
@@ -195,8 +195,7 @@ def render(
     pkp = packed_key_params(n_rows, depth_max, windowed) if packed_zbuffer else None
     if pkp is not None:
         # phase 1+2 fused: ONE scatter-min of a packed (depth-bucket, index)
-        # key — scatters serialise per update on TPU, so halving the scatter
-        # count halves the dominant render cost.  The bucket is the truncated
+        # key, half the scatters of the exact path.  The bucket is the truncated
         # float32 bit pattern of z (monotone for positive floats), so it only
         # decides the winner among surfels within a RELATIVE z * 2^(shift-23)
         # band (<= ~1.6%; the output depth is the winner's EXACT z, gathered
@@ -231,11 +230,10 @@ def render(
         has_win, (start + win).astype(jnp.int32), -1
     ).reshape(height, width)
 
-    # phase 3: ONE wide row-gather of winner attributes.  TPU gather cost is
-    # dominated by rows fetched, not row width, and separate narrow gathers
-    # (u, v, z, p_c, attribute rows) do NOT fuse — so all per-surfel columns
-    # are packed into one [n_rows, 16] table first (dense, cheap) and fetched
-    # in a single gather.
+    # phase 3: ONE wide row-gather of winner attributes: all per-surfel
+    # columns (u, v, z, p_c, attribute rows) are packed into one [n_rows, 16]
+    # table first (dense, cheap) and fetched in a single gather instead of
+    # several narrow ones.
     n_cam = se3.rotate_vectors(Tinv, rows[:, sm.NORMAL])
     r_px_all = jnp.clip(
         rows[:, sm.RADIUS] * intr.fx / jnp.maximum(z, 1e-6), 0.5, splat_k * 0.75

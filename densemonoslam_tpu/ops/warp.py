@@ -1,19 +1,16 @@
 """Dense local warping: image sampling at small per-pixel displacements
 without gathers.
 
-TPU reality check: XLA lowers random-access gather/scatter to ~13 ns/element
-serial loops, so the classic "project every pixel and bilinearly sample"
-formulation of dense tracking (4+ gathers of 300k pixels per GN iteration)
-costs hundreds of milliseconds per frame.  But projective data association
-only ever needs SMALL displacements — coarse-to-fine GN converges each level
-to sub-pixel error, so the next level starts within a few pixels — and a
-small displacement can be resolved densely: build the (2R+1)^2 stack of
-statically shifted images (pure data movement) and select per pixel with
-masks (VPU elementwise ops).  Cost is O((2R+1)^2 * H * W * C) dense work,
-which the VPU eats at memory bandwidth; there is no serialisation anywhere.
-
-This module is the performance foundation of the tracking stack; the
-reference gets the same effect for free from GPU texture units.
+The classic "project every pixel and bilinearly sample" formulation of
+dense tracking needs 4+ random-access gathers of every pixel per GN
+iteration.  But projective data association only ever needs SMALL
+displacements — coarse-to-fine GN converges each level to sub-pixel error,
+so the next level starts within a few pixels — and a small displacement can
+be resolved densely: build the (2R+1)^2 stack of statically shifted images
+(pure data movement) and select per pixel with masks (elementwise ops).
+Cost is O((2R+1)^2 * H * W * C) dense work at memory bandwidth, with no
+random access.  The reference gets the same effect from GPU texture units;
+which form is faster on the H100 is not measured yet.
 """
 
 from __future__ import annotations
@@ -28,10 +25,9 @@ import jax.numpy as jnp
 def decimate(img: jnp.ndarray, k: int) -> jnp.ndarray:
     """Strided decimation ``img[::k, ::k]`` as a native strided-window op.
 
-    A python strided slice lowers to a GATHER on the TPU backend
-    (~0.8-1.4 ms per 640x480 map — measured; it dominated the whole frame
-    budget), while `lax.reduce_window` with a 1x1 window and stride k is a
-    first-class cheap op.  Works for [H, W] and [H, W, C]."""
+    `lax.reduce_window` with a 1x1 window and stride k is a first-class
+    strided-window op, where a python strided slice may lower to a gather.
+    Works for [H, W] and [H, W, C]."""
     if k == 1:
         return img
     ndim = img.ndim

@@ -1,9 +1,9 @@
 """Distributed pose-graph optimisation and Schur-complement bundle adjustment.
 
 The reference has no global BA of its own (it defers to ORB-SLAM3 and to the
-deformation graph); the TPU rebuild's north star makes distributed
-BA/pose-graph solves a first-class component: keyframes and landmark blocks
-sharded across chips, normal equations reduced with `psum` over ICI, the
+deformation graph); this rebuild makes distributed BA/pose-graph solves a
+first-class component: keyframes and landmark blocks sharded across
+devices, normal equations reduced with `psum` over the mesh, the
 small camera system solved replicated (BASELINE "distributed bundle
 adjustment and pose-graph solves done via Schur-complement reduction over
 psum/all-gather collectives").
@@ -112,7 +112,7 @@ def optimise_pose_graph(
 
 def make_distributed_pgo(mesh: Mesh, iters: int = PGO_GN_ITERS, cg_iters: int = PGO_CG_ITERS):
     """Edge-sharded pose-graph GN: poses replicated, edges split over the
-    `cam` mesh axis, normal-equation products psum-reduced over ICI."""
+    `cam` mesh axis, normal-equation products psum-reduced over the mesh."""
 
     def local(poses, ei, ej, Z, w):
         edges = PoseGraphEdges(i=ei, j=ej, Z=Z, weight=w)
@@ -251,7 +251,7 @@ def _schur_reduce(r, Jc, Jp, cam_idx, pnt_idx, K, Pn, damping):
 
     V (per-point 3x3) and W-products are accumulated with segment scatters;
     the [6K, 6K] S and [6K] b come from per-point outer products through a
-    one-hot camera incidence (einsum -> MXU)."""
+    one-hot camera incidence (one einsum)."""
     # per-point V and b_p
     V = jnp.zeros((Pn, 3, 3)).at[pnt_idx].add(
         jnp.einsum("oij,oik->ojk", Jp, Jp)
@@ -357,7 +357,7 @@ def make_distributed_ba(
     the `cam` mesh axis (each shard owns a point block and ALL observations of
     those points — sort observations by point id before sharding, e.g. with
     `shard_ba_problem`); each shard forms its partial (S, b), `psum` reduces
-    them over ICI, every device solves the replicated camera system, and
+    them over the mesh, every device solves the replicated camera system, and
     landmarks back-substitute locally.  This is BASELINE's
     Schur-complement-over-collectives recipe.
 

@@ -10,7 +10,7 @@ own camera and map shard.  Because each shard processes exactly one camera,
 the step's `lax.cond` fusion branch stays a real branch (vmapping it would
 degrade to a both-sides select).
 
-Cross-camera state rides ICI collectives: per-camera stats are all-gathered
+Cross-camera state rides mesh collectives: per-camera stats are all-gathered
 so every host sees session health, and the global surfel total is a psum —
 the SPMD analogue of the reference's shared stats/GUI state.  Inter-map loop
 closures and merges run collectively (`parallel.intermap`); per-camera
@@ -69,7 +69,7 @@ def make_collab_step(
             jnp.eye(4, dtype=jnp.float32), jnp.asarray(False),
             jnp.asarray(1.0, jnp.float32), jnp.float32(0.0),
         )
-        # session-wide views over ICI
+        # session-wide views over the mesh
         global_stats = jax.lax.all_gather(stats, "cam")
         total = jax.lax.psum(new_state.map_count, "cam")
         out = jax.tree.map(lambda v: v[None], new_state)

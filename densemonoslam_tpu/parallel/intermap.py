@@ -26,7 +26,7 @@ camera's map lives on its own device and no host ever holds two maps:
 
 After a merge the cameras share ONE world frame and map id but keep their
 surfels on their own devices — a map SHARDED BY CREATING CAMERA.  This is
-the deliberate TPU-native deviation from the reference's physical
+the deliberate deviation from the reference's physical
 `consumeReferenceFrame` copy (its contexts share one GPU's VBO; our maps are
 device-resident).  `consume=True` additionally performs the physical move —
 the source camera's rows are routed over the mesh (masked psum) and appended

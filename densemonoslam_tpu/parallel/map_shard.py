@@ -19,31 +19,18 @@ from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from densemonoslam_tpu.mapping import deformation as dg
-from densemonoslam_tpu.mapping import surfel_map as sm
 
 
 def make_sharded_apply_to_map(mesh: Mesh):
     """Build `run(data [N+1,16], count, graph) -> data` with the N surfel
     rows block-sharded over the mesh's `map` axis (graph replicated).
-    Bit-identical to `deformation.apply_to_map` on one device; N must divide
-    by the `map` axis size."""
+    Runs the same per-row function as `deformation.apply_to_map`
+    (`deformation.deform_rows`); N must divide by the `map` axis size."""
 
     def local(rows, count, gpos, gtime, gvalid, gA, gt):
         graph = dg.DeformGraph(pos=gpos, time=gtime, valid=gvalid, A=gA, t=gt)
-        n_local = rows.shape[0]
-        base = jax.lax.axis_index("map") * n_local
-        idx = base + jnp.arange(n_local)
-        alive = (rows[:, sm.CONF] > 0) & (idx < count)
-        pts = rows[:, sm.POS]
-        nrm = rows[:, sm.NORMAL]
-        new_p, new_n = dg.deform_points(
-            graph, pts, rows[:, sm.INIT_TIME], nrm
-        )
-        rows = rows.at[:, sm.POS].set(jnp.where(alive[:, None], new_p, pts))
-        rows = rows.at[:, sm.NORMAL].set(
-            jnp.where(alive[:, None], new_n, nrm)
-        )
-        return rows
+        base = jax.lax.axis_index("map") * rows.shape[0]
+        return dg.deform_rows(graph, rows, base, count)
 
     sharded = shard_map(
         local,

@@ -5,7 +5,7 @@ The reference carries Intel Fast Global Registration (`Core/src/FGROdometry
 line-process optimisation) for initialisation-free inter-map alignment —
 though the call sites are compiled out in the current code
 (`ElasticFusion.cpp:1118-1145`).  This module provides the equivalent
-capability TPU-natively and without PCL/flann:
+capability as dense array programs, without PCL/flann:
 
 - correspondences come from the sparse module's ORB features (Hamming
   matching already runs as dense XOR/popcount on device);

@@ -7,7 +7,7 @@ through `System::TrackRGBD`, `GetLastPose`, and
 `loopClosing()->getLoopClosureCandidate()` — `GUI/src/MainController.cpp:
 131-135,327-371`).  This module provides the equivalent capability surface the
 hybrid pipeline needs — a pose per frame and loop-closure pose pairs — built
-TPU-first:
+as dense array programs:
 
 - **FAST-9/16 detection** is fully dense: the 16 Bresenham-circle taps are
   static shifts, the >=9-contiguous test is 16-bit mask rotation arithmetic,
@@ -447,7 +447,7 @@ class SparseTracker:
         # BASELINE config 4: when a `jax.sharding.Mesh` with a `cam` axis is
         # given, the pose-graph solve runs edge-sharded and the sliding-
         # window BA landmark-sharded across the mesh (Schur/normal equations
-        # psum-reduced over ICI) instead of on one device — same optimum,
+        # psum-reduced over the mesh) instead of on one device — same optimum,
         # parity-tested in tests/test_street.py.
         self.mesh = mesh
         self._dist_pgo = None
@@ -552,9 +552,8 @@ class SparseTracker:
         interval: every value fetched here was dispatched at least one
         interval ago, so with the dense steps of the current interval still
         in the device queue, each `device_get` returns already-finished
-        results instead of draining the queue.  (Measured: the old
-        fetch-what-you-just-dispatched flush cost ~55 ms/frame of serial
-        host<->device ping-pong — the single largest cost of hybrid mode.)
+        results instead of draining the queue (a fetch-what-you-just-
+        dispatched flush serialises host and device).
 
         Stages per decision:
         - keyframes: batch-fetch the PREVIOUS interval's (ok, disp, pose)

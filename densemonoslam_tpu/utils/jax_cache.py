@@ -1,39 +1,34 @@
 """Persistent XLA compilation cache setup.
 
 The SLAM pipeline compiles a handful of large programs (the fused per-frame
-step, bundle adjustment, map compaction, loop-closure programs); on this
-class of host a single `compact` at 4M-row capacity costs ~13 s of COMPILE
-time.  Programs that first run mid-sequence (BA once enough keyframes exist,
-compaction at its cadence, PGO on the first loop) would otherwise stall the
-live pipeline — the persistent cache makes every compile a once-per-machine
-cost (measured 22.3 s -> 1.0 s across processes).
+step, bundle adjustment, map compaction, loop-closure programs), and several
+of them first run mid-sequence (BA once enough keyframes exist, compaction at
+its cadence, PGO on the first loop).  A persistent cache turns each such
+compile into a once-per-machine cost instead of a stall in a live pipeline.
 
-Opt out with ``DMS_JAX_CACHE=0``; override the location with
-``DMS_JAX_CACHE=/path``.
+Where ``JAX_COMPILATION_CACHE_DIR`` is set, JAX reads it itself and this
+module sets no directory.  Otherwise the cache lives at the fixed path
+``<checkout>/.jax_cache``: the path is part of the cache key, so a directory
+that moved between runs would never hit.
 """
 
 from __future__ import annotations
 
 import os
 
-_DEFAULT = os.path.join(
+import jax
+
+DEFAULT_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
     ".jax_cache",
 )
 
 
-def enable(path: str | None = None) -> bool:
-    """Point JAX at a persistent compilation cache directory.  Safe to call
-    multiple times; returns True when the cache is active."""
-    env = os.environ.get("DMS_JAX_CACHE", "")
-    if env == "0":
-        return False
-    path = path or (env if env not in ("", "1") else None) or _DEFAULT
-    try:
-        import jax
-
-        jax.config.update("jax_compilation_cache_dir", path)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-        return True
-    except Exception:  # pragma: no cover — never break startup over a cache
-        return False
+def enable() -> str:
+    """Turn the persistent compilation cache on; returns its directory."""
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    jax.config.update("jax_compilation_cache_dir", DEFAULT_DIR)
+    return DEFAULT_DIR

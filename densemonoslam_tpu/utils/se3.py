@@ -137,10 +137,10 @@ def se3_inverse(T: jnp.ndarray) -> jnp.ndarray:
 def transform_points(T: jnp.ndarray, p: jnp.ndarray) -> jnp.ndarray:
     """Apply a 4x4 rigid transform to points [..., 3].
 
-    Written as broadcast multiply-adds, NOT an einsum: a K=3 einsum lowers to
-    a heavily padded MXU matmul whose bf16 passes cost ~4e-3 relative error
-    (millimetres on metre-scale vertices); the elementwise form runs on the
-    VPU in exact f32 and is faster than the padded matmul anyway."""
+    Written as broadcast multiply-adds, NOT an einsum: a K=3 einsum becomes
+    a matmul that a backend may run at reduced precision (TF32 keeps ~3
+    digits: millimetres on metre-scale vertices); the elementwise form is
+    exact f32 everywhere."""
     R = T[:3, :3]
     return jnp.sum(R * p[..., None, :], axis=-1) + T[:3, 3]
 

@@ -1,4 +1,4 @@
-"""Per-stage timing of the fused SLAM step on the real chip.
+"""Per-stage timing of the fused SLAM step on the GPU.
 
 Times each pipeline stage (preprocess, tracking GN, splat render, fusion,
 NID) as its own jitted function over realistic 640x480 state, then the full

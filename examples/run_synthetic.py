@@ -1,7 +1,7 @@
 """Run the framework on the synthetic sequence and report ATE + frames/s.
 
 Usage:
-    python examples/run_synthetic.py [--frames N] [--platform cpu|tpu] [--odometry-only]
+    python examples/run_synthetic.py [--frames N] [--platform cpu|gpu] [--odometry-only]
 
 This is the equivalent of the reference's log-replay evaluation run
 (`./ElasticFusion --l log --q`): process every frame, export a `.freiburg`
@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=30)
-    ap.add_argument("--platform", default="cpu", choices=["cpu", "tpu"])
+    ap.add_argument("--platform", default="cpu", choices=["cpu", "gpu"])
     ap.add_argument("--odometry-only", action="store_true", help="frame-to-frame tracking, no map")
     ap.add_argument("--out", default=None, help="directory for .freiburg/.ply exports")
     args = ap.parse_args()
@@ -32,6 +32,10 @@ def main() -> int:
 
     if args.platform == "cpu":
         jax.config.update("jax_platforms", "cpu")
+    else:
+        from densemonoslam_tpu.utils.device import require_gpu
+
+        require_gpu()
     import jax.numpy as jnp
     import numpy as np
 

@@ -199,3 +199,32 @@ def test_relative_constraints_preserve_prior_correction():
     # the new closure's own constraint is still honoured
     moved = dg.deform_points(g_rel, cons.src, cons.time)
     assert float(jnp.linalg.norm(moved - cons.dst)) < 0.1
+
+
+def test_apply_to_map_chunked_tail_matches_float64_reference():
+    """A capacity above one `APPLY_CHUNK` block with a partial tail block:
+    live rows (a sample of the first block, all of the tail) match the
+    float64 numpy evaluation of the blending semantics, and dead rows
+    (culled, or at/after `count`) are untouched."""
+    from chip_smoke import blend_reference, random_graph, random_map
+
+    rows = dg.APPLY_CHUNK + 3000
+    count = dg.APPLY_CHUNK + 1000  # live rows reach into the tail block
+    data = random_map(5, rows, count, 3.0)
+    cnt = jnp.asarray(count, jnp.int32)
+    graph = random_graph(data, cnt, 64, 3.0, seed=6)
+    sample = np.r_[np.random.default_rng(0).choice(dg.APPLY_CHUNK, 20000, replace=False),
+                   np.arange(dg.APPLY_CHUNK, rows)]
+    before = np.asarray(data)[sample]
+    after = np.asarray(dg.apply_to_map(data, cnt, graph))[sample]
+    g = [np.asarray(a) for a in (graph.pos, graph.time, graph.valid, graph.A, graph.t)]
+    alive = before[:, sm.CONF] > 0
+    assert alive[-3000:].sum() > 900 and (~alive[-3000:]).sum() >= 2000
+    ref_p, ref_n = blend_reference(
+        *g, before[alive][:, sm.POS], before[alive][:, sm.INIT_TIME],
+        before[alive][:, sm.NORMAL],
+    )
+    assert np.abs(ref_p - before[alive][:, sm.POS]).max() > 0.01  # it moved
+    np.testing.assert_allclose(after[alive][:, sm.POS], ref_p, atol=1e-4)
+    np.testing.assert_allclose(after[alive][:, sm.NORMAL], ref_n, atol=1e-5)
+    np.testing.assert_array_equal(after[~alive], before[~alive])

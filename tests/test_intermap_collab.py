@@ -1,5 +1,5 @@
-"""Collective (SPMD) inter-map closures on the virtual CPU mesh (VERDICT r3
-missing #3, BASELINE config 5): two cameras start in SEPARATE maps on
+"""Collective (SPMD) inter-map closures on the virtual CPU mesh (BASELINE
+config 5): two cameras start in SEPARATE maps on
 separate devices, observe overlapping parts of the same scene, and the
 collective inter-map round (`parallel.intermap`) must recognise the overlap
 through the on-device fern DBs, verify it geometrically against a served
@@ -164,7 +164,7 @@ def test_collective_intermap_consume(session):
 
 
 def test_intermap_fern_db_evicts_when_full():
-    """VERDICT r4 missing #3: inserting more than FERN_K novel keyframes must
+    """Inserting more than FERN_K novel keyframes must
     keep learning (evict the most redundant entry), never freeze — a late-
     session overlap must still be representable.  Unit-drives `fern_insert`
     with synthetic codes (the round wrapper only adds renders/collectives)."""
@@ -205,7 +205,7 @@ def test_intermap_fern_db_evicts_when_full():
 
 
 def test_collab_full_pipeline_closes_intra_map_loops():
-    """VERDICT r4 missing #2: the FULL per-camera pipeline under SPMD — NID
+    """The FULL per-camera pipeline under SPMD — NID
     keyframing in the sharded step, and each camera closing its own
     INTRA-map (active-vs-inactive) loop inside the sharded local-loop
     program at cadence, while sharing the mesh.  Reference: every

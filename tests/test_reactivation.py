@@ -1,4 +1,4 @@
-"""Post-closure reactivation vs the windowed hot passes (VERDICT r3 #1).
+"""Post-closure reactivation vs the windowed hot passes.
 
 The reference reactivates only surfels the deformation moved into the current
 view (`copy_unstable.vert:150-156`).  Round-3 bumped EVERY live surfel, so on

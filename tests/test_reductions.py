@@ -5,6 +5,7 @@ the oracle strategy SURVEY §4 prescribes for the rebuild."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from densemonoslam_tpu.config import CameraIntrinsics
 from densemonoslam_tpu.ops import geometry, reductions
@@ -173,3 +174,24 @@ def test_icp_gates_reject_outliers(rng):
     )
     # solution still sane despite corruption
     assert float(jnp.linalg.norm(xi)) < 0.1
+
+
+@pytest.mark.parametrize("P,C", [(4096, 8), (10000, 8), (307200, 8), (100, 16)])
+def test_gram_matches_float64(rng, P, C):
+    """`gram` against a float64 numpy M^T M; f32 summation error is bounded
+    relative to sum_p |m_pi m_pj|, the same bound the GPU smoke asserts."""
+    M = rng.normal(0, 1, (P, C)).astype(np.float32)
+    M64 = M.astype(np.float64)
+    out = np.asarray(reductions.gram(jnp.asarray(M)))
+    scale = np.abs(M64).T @ np.abs(M64)
+    assert np.max(np.abs(out - M64.T @ M64) / scale) <= 1e-5
+
+
+def test_gram_zero_row_padding_invariance(rng):
+    """Masked rows are zero, so padding with zero rows must not change G
+    beyond the reordering of the f32 sum that another row count brings."""
+    M = rng.normal(0, 1, (5000, 8)).astype(np.float32)
+    out1 = np.asarray(reductions.gram(jnp.asarray(M)))
+    out2 = np.asarray(reductions.gram(jnp.asarray(np.concatenate([M, np.zeros((3000, 8), np.float32)]))))
+    scale = np.abs(M.astype(np.float64)).T @ np.abs(M.astype(np.float64))
+    assert np.max(np.abs(out1 - out2) / scale) <= 1e-6

@@ -1,7 +1,7 @@
 """Long-sequence soak: 1000 frames of repeated scene laps through the FULL
 engine (tracking + fusion + NID + windowing + loop machinery).
 
-Asserts the properties that only show up at length (VERDICT round-1 #9):
+Asserts the properties that only show up at length:
 bounded memory (surfel count plateaus under the active-window/compaction
 scheme instead of growing linearly), flat per-frame cost (late batches are
 not slower than early ones), and bounded trajectory error across laps.
